@@ -1,6 +1,6 @@
-"""svi_mapper_tpu — a TPU-native stereo visual(-inertial) SLAM engine.
+"""svi_mapper_tpu — a JAX stereo visual(-inertial) SLAM engine.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the C++
+A from-scratch JAX/XLA re-design of the capabilities of the C++
 reference ``schdomin/svi_mapper`` (see SURVEY.md): BRIEF-style stereo keypoint
 detection, epipolar-constrained left/right matching, landmark triangulation
 and refinement, robust stereo-reprojection pose solving ("stereo posit"),

@@ -154,7 +154,7 @@ def load_stereo_camera(
 class TrackingParams:
     """All front-end/solver thresholds, with reference provenance."""
 
-    # --- capacities (static shapes; TPU fixed-capacity tables) ---
+    # --- capacities (static shapes; fixed-capacity device tables) ---
     max_landmarks: int = 1024          # active landmark table rows
     max_detections: int = 1024         # GFTT cap (ref CFundamentalMatcher.cpp:18)
     max_measurements: int = 16         # per-landmark measurement ring buffer
@@ -190,8 +190,8 @@ class TrackingParams:
     posit_max_error_px2: float = 9.0
     posit_max_risk_m2: float = 2.0
     # GN converges in <10 iterations; the reference's 1000-iteration cap
-    # (CSolverStereoPosit.h) is a safety net. On TPU the while_loop trip
-    # count is paid by the whole vmapped batch, so keep the cap tight.
+    # (CSolverStereoPosit.h) is a safety net. On the device the while_loop
+    # trip count is paid by the whole vmapped batch, so keep the cap tight.
     posit_max_iterations: int = 25
     posit_convergence: float = 1e-5
 
@@ -238,8 +238,8 @@ class TrackingParams:
     # database's per-node feature lists at :248-250): >0 requires matched
     # descriptor pairs to share their vocabulary node at that tree level,
     # implemented as a node-equality mask on the dense Hamming matrix
-    # (mapping.vocabulary.node_ids). Default OFF: on TPU the exact
-    # all-pairs match is already one fused dispatch, so the index is a
+    # (mapping.vocabulary.node_ids). Default OFF: the exact all-pairs
+    # match is already one fused dispatch, so the index is a
     # precision knob (prunes cross-node coincidental Hamming hits) rather
     # than the CPU reference's lookup accelerator; enabling it trades
     # closure recall for precision.

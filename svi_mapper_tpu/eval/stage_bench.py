@@ -67,17 +67,13 @@ def stage_budget(width: int = 1241, height: int = 376, reps: int = 10):
     img_r = jnp.asarray(Rf)
     T_prior = jnp.asarray(Tf, jnp.float32)
 
-    wp = -(-width // 16) * 16
-    img_l_ext = jnp.pad(img_l, ((0, 0), (0, wp - width)), mode="edge")
-    img_r_ext = jnp.pad(img_r, ((0, 0), (0, wp - width)), mode="edge")
-
     budget: dict[str, float] = {}
 
     budget["dense_brief_x2"] = _timeit(
-        lambda: (smooth_brief_dense(img_l_ext), smooth_brief_dense(img_r_ext)),
+        lambda: (smooth_brief_dense(img_l), smooth_brief_dense(img_r)),
         reps)
-    dense_l = smooth_brief_dense(img_l_ext)
-    dense_r = smooth_brief_dense(img_r_ext)
+    dense_l = smooth_brief_dense(img_l)
+    dense_r = smooth_brief_dense(img_r)
 
     ms = epi.motion_scaling(jnp.eye(4))
     tr = track_landmarks(dense_l, dense_r, state.table, T_prior, seq.cam, ms)

@@ -4,7 +4,7 @@ Replaces the reference's Qt4/QGLViewer stack (``TrackingContextViewer``:
 live 3D view of keyframes, trajectory and landmarks with follow-robot mode,
 gt_tracking_context_viewer.h:7-37; HUD info box CTrackerGT.cpp:723-758;
 legacy CViewerScene/CViewerCloud) with two headless outputs that fit a
-TPU-pod workflow:
+batch workflow on a machine with no display:
 
 * :func:`render_map` — a static PNG (matplotlib Agg): top-down map with
   trajectory / ground truth / keyframes / loop closures over the landmark

@@ -1,7 +1,5 @@
 """Front-end: temporal tracking, stereo correspondence, epipolar geometry.
 
 Submodules are imported lazily by their users (``frontend.tracking``,
-``frontend.stereo``, ``frontend.epipolar``) — an eager re-export here would
-close an import cycle with ``ops.track_kernel``, which shares the tracking
-acceptance spec with ``frontend.epipolar``.
+``frontend.stereo``, ``frontend.epipolar``); nothing is re-exported here.
 """

@@ -1,6 +1,6 @@
 """Per-landmark epipolar band parameters for stage-3 tracking.
 
-TPU-native replacement for the epipolar-curve stage of
+JAX replacement for the epipolar-curve stage of
 ``CFundamentalMatcher::trackEpipolar`` (CFundamentalMatcher.cpp:802-977):
 the reference computes, per detection point, a fundamental matrix from the
 relative pose, the epipolar line of each landmark's reference observation,
@@ -11,13 +11,13 @@ CTrackerGT.cpp:157), and samples candidates along the dominant axis with
 perpendicular recursion offsets (:2142-2334).
 
 Here the same geometry becomes five per-landmark integers consumed by the
-dense window scorer (frontend.tracking / ops.track_kernel): a fixed-point
+dense window scorer (frontend.tracking): a fixed-point
 line normal + offset and two axis reaches. Candidates are ALL window pixels
 within perpendicular distance ``BAND_HALF_WIDTH_PX`` of the line and within
 the scaled reach — a strict superset of the reference's recursive +-2
 offset sampling, at zero extra cost since the window is scored densely
-anyway. The fixed-point quantization (x256) makes the XLA path and the
-Pallas kernel bit-identical.
+anyway. The fixed-point quantization (x256) makes the band test exact
+integer arithmetic, identical on every backend.
 
 Key property (why stage 3 exists): the epipolar line through the landmark's
 LAST observation passes through its true current projection regardless of
@@ -33,8 +33,7 @@ import jax.numpy as jnp
 
 from svi_mapper_tpu.mapping.landmarks import LandmarkTable
 
-# fixed-point scale for the line test (shared by the XLA path and the
-# Pallas kernel so both paths compare identical integers)
+# fixed-point scale for the line test (exact integer comparisons)
 BAND_SCALE = 256
 # half-width of the accepted band around the epipolar line, in pixels
 # (the reference samples offsets 0/+2 around the curve with recursion

@@ -1,6 +1,6 @@
 """Regional detection recovery — the batched stage-2 second chance.
 
-TPU-native replacement for the reference's regional GFTT recovery
+JAX replacement for the reference's regional GFTT recovery
 (CFundamentalMatcher.cpp:495-727): for every landmark the direct window
 check missed, the reference re-detects GFTT corners inside a search
 rectangle around the predicted reprojection — half size
@@ -12,11 +12,11 @@ The region grows with motion and eccentricity far beyond any dense scoring
 window (up to +-75 px), so this stage recovers landmarks whose prediction
 error exceeds the window reach of frontend.tracking.
 
-The TPU restructuring inverts the loop: corners are detected ONCE over the
-whole image (a full-image structure-tensor response costs the same as one
-region on TPU), descriptors for all K detections are gathered in one batch,
-and the landmark-region containment + Hamming acceptance becomes one
-``[L, K]`` masked matrix reduced by argmin. One-to-one assignment (the
+The batched restructuring inverts the loop: corners are detected ONCE over
+the whole image (a full-image structure-tensor response is one fused
+device pass, no dearer than one region), descriptors for all K detections
+are gathered in one batch, and the landmark-region containment + Hamming
+acceptance becomes one ``[L, K]`` masked matrix reduced by argmin. One-to-one assignment (the
 reference's vote dedup ``_getMatchNN``, CTrackerGT.cpp:648-678) keeps, per
 detection, only the landmark with the smallest distance. Recovery runs
 AFTER the pose solve, under the refined pose — the reference's ordering
@@ -31,7 +31,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from svi_mapper_tpu.geometry import se3
 from svi_mapper_tpu.geometry.camera import StereoCamera
@@ -39,6 +38,7 @@ from svi_mapper_tpu.mapping.landmarks import LandmarkTable
 from svi_mapper_tpu.ops.corners import detect_corners
 from svi_mapper_tpu.ops.descriptors import brief_at
 from svi_mapper_tpu.ops.hamming import hamming_mxu
+from svi_mapper_tpu.utils import struct
 
 _BIG = jnp.int32(1 << 20)
 
@@ -151,7 +151,7 @@ def _recover(
     desc_det = brief_at(dense_left, uv_det)                 # [K*9, 8]
     K = uv_det.shape[0]
 
-    # --- [L, K] masked Hamming acceptance (MXU bit-matmul: the naive
+    # --- [L, K] masked Hamming acceptance (bit-matmul: the naive
     #     XOR+popcount would materialize [L, K, 8]) ------------------------
     from svi_mapper_tpu.mapping.landmarks import anchor_descriptors
 

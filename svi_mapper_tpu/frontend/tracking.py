@@ -1,6 +1,6 @@
 """Temporal landmark tracking: the 3-stage matcher as one masked window op.
 
-TPU-native replacement for the tracking engine of ``CFundamentalMatcher``
+JAX replacement for the tracking engine of ``CFundamentalMatcher``
 (CFundamentalMatcher.cpp:391-2397). The reference runs, per landmark, a
 try/catch cascade of three stages:
   stage 1 — direct reprojection descriptor check (cutoff 25, :391-487);
@@ -25,12 +25,10 @@ then masked into three tiers —
 — and reduced by a masked argmin whose score bias enforces the cascade
 priority (a stage-1 acceptance always beats stage-2 beats stage-3). The
 dual-descriptor rule applies to every candidate. Scoring every window
-pixel is free relative to the lattice-gather it replaces: on TPU the
-Pallas band-sweep kernel (ops.track_kernel) evaluates the whole window via
-one MXU matmul per landmark; on CPU/GPU the window is sliced once per
-landmark. Both paths compare identical integers (fixed-point band test)
-and tie-break by row-major window position, so they are bit-identical for
-in-FoV landmarks.
+pixel is free relative to the lattice-gather it replaces: the window is
+sliced once per landmark from the dense field, the band test is
+fixed-point integer arithmetic, and ties break by row-major window
+position, so the result is deterministic on every backend.
 """
 
 from __future__ import annotations
@@ -39,7 +37,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from svi_mapper_tpu.frontend.epipolar import (
     BAND_HALF_WIDTH_Q,
@@ -50,20 +47,22 @@ from svi_mapper_tpu.geometry import se3
 from svi_mapper_tpu.geometry.camera import StereoCamera
 from svi_mapper_tpu.mapping.landmarks import LandmarkTable
 from svi_mapper_tpu.ops.descriptors import brief_at
-from svi_mapper_tpu.ops.track_kernel import (
-    REACH_X,
-    REACH_Y,
-    WIN_H,
-    WIN_W,
-)
+from svi_mapper_tpu.utils import struct
+
+# window geometry: the acceptance-mask reach around each prediction
+REACH_X = 28                 # ref: epipolar reach, <= the 28 px FoV inset
+REACH_Y = 20                 # vertical reach for steep epipolar lines
+WIN_W = 2 * REACH_X + 1      # 57 px of candidate reach
+WIN_H = 2 * REACH_Y + 1      # 41
 
 # score bias per tier: stage-1 hits dominate stage-2 dominate stage-3,
 # mirroring the reference's cascade short-circuit order
 TIER_BIAS = (0, 1000, 2000)
 
 _BIG = jnp.int32(1 << 20)
-# rejected-candidate sentinel before the BIG rewrite — must match the
-# kernel's so the fused (score, position) min keys are comparable
+# rejected-candidate sentinel before the BIG rewrite: small enough that the
+# fused (score, position) min key score * 4096 + pos stays exact in int32
+# (pos < WIN_H * WIN_W = 2337 < 4096)
 _BIG_K = 4096
 
 
@@ -94,9 +93,8 @@ def tier_scores(dx, dy, d_last, ref_ok, nxq, nyq, c0q, ru, rv,
     CFundamentalMatcher.cpp:495-727). Per-pixel score = min over tiers of
     ``d_last + tier_bias`` where the tier's region and cutoff accept.
 
-    This is THE tracking acceptance spec — the Pallas kernel re-states the
-    same arithmetic in ops.track_kernel._score_window. Returns the int32
-    score (``_BIG_K`` where nothing accepts).
+    This is THE tracking acceptance spec. Returns the int32 score
+    (``_BIG_K`` where nothing accepts).
     """
     adx, ady = jnp.abs(dx), jnp.abs(dy)
     t0 = (adx <= 1) & (ady <= 1)
@@ -122,12 +120,11 @@ def window_scores(
     cutoff_s2: int,
     cutoff_ref: int,
 ):
-    """XLA dense window scorer (the CPU/GPU path and the kernel's oracle).
+    """Dense window scorer: every window pixel of every landmark at once.
 
     Returns ``(score [L], x [L], y [L], dist [L])`` int32 — the biased best
     score (>= 1<<20 if no acceptance), the winning pixel, and its Hamming
-    distance to the last descriptor. Bit-identical to
-    ops.track_kernel.track_scores for in-FoV landmarks.
+    distance to the last descriptor.
     """
     h, w, _ = dense.shape
     nxq, nyq, c0q, ru, rv = band
@@ -161,11 +158,8 @@ def window_scores(
         jnp.int32(cutoff_s1), jnp.int32(cutoff_s2),
     )
 
-    # fused (score, position) min key. Window-local row-major position:
-    # its value differs from the kernel's block-local position, but both
-    # are strictly monotone in global (y, x), so equal-score ties resolve
-    # to the SAME pixel in both paths (all accepted candidates lie in the
-    # intersection of window and kernel block).
+    # fused (score, position) min key: window-local row-major position, so
+    # equal-score ties resolve to the first pixel in (y, x) order
     pos = (row[None, :, None] * jnp.int32(WIN_W) + col[None, None, :]
            + jnp.zeros_like(score))
     key = jnp.min((score * _BIG_K + pos).reshape(score.shape[0], -1), axis=1)
@@ -210,8 +204,8 @@ def track_landmarks(
     # The "original"-descriptor side of the dual gate: either the creation
     # descriptor (plain reference rule) or the nearest history-ring
     # snapshot (drift-tolerant anchor, see mapping.landmarks). Resolved
-    # per landmark BEFORE scoring, so both the Pallas kernel and the XLA
-    # window pass consume one [L, 8] anchor and stay bit-identical.
+    # per landmark BEFORE scoring, so the window pass consumes one [L, 8]
+    # anchor.
     desc_anchor = (anchor_descriptors(table) if use_desc_history
                    else table.desc_left_ref)
 
@@ -233,24 +227,11 @@ def track_landmarks(
     uvs = jnp.nan_to_num(uv_pred, nan=0.0, posinf=0.0, neginf=0.0)
     frac = uvs - jnp.round(uvs)
 
-    if jax.default_backend() == "tpu":
-        # Pallas band-sweep kernel: one HBM pass over the dense field,
-        # per-landmark window scoring in VMEM (ops.track_kernel). Produces
-        # bit-identical scores for in-FoV landmarks (the 28 px FoV inset
-        # guarantees candidate windows stay inside the image).
-        from svi_mapper_tpu.ops.track_kernel import track_scores
-
-        best_score, x, y, best_dist = track_scores(
-            dense_left, uv_pred, table.desc_left_last, desc_anchor,
-            band,
-            cutoff_s1=cutoff_s1, cutoff_s2=cutoff_s2, cutoff_ref=cutoff_ref,
-        )
-    else:
-        best_score, x, y, best_dist = window_scores(
-            dense_left, uv_pred, table.desc_left_last, desc_anchor,
-            band,
-            cutoff_s1=cutoff_s1, cutoff_s2=cutoff_s2, cutoff_ref=cutoff_ref,
-        )
+    best_score, x, y, best_dist = window_scores(
+        dense_left, uv_pred, table.desc_left_last, desc_anchor,
+        band,
+        cutoff_s1=cutoff_s1, cutoff_s2=cutoff_s2, cutoff_ref=cutoff_ref,
+    )
 
     uv_l = jnp.stack(
         [x.astype(uv_pred.dtype), y.astype(uv_pred.dtype)], axis=-1

@@ -1,8 +1,8 @@
 """Closed-form small linear algebra for the GN/LM solvers.
 
-TPU rationale: ``jnp.linalg.solve``/``inv`` lower to LU custom calls that
-cost ~0.1 ms each and serialize per batch element — ruinous for the tiny
-3x3/6x6 normal-equation systems every solver in this package builds
+Rationale: ``jnp.linalg.solve``/``inv`` lower to LU library calls that
+serialize per batch element — ruinous for the tiny 3x3/6x6 normal-equation
+systems every solver in this package builds
 (landmark refinement CLandmark.cpp:447-581 has one 3x3 per landmark; stereo
 posit CSolverStereoPosit.cpp:108 and closure ICP CTrackerGT.cpp:535-630 one
 6x6 per iteration). Closed forms are pure fused elementwise ops: they vmap,

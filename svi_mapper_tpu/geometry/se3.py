@@ -1,6 +1,6 @@
 """SE(3) / SO(3) Lie-group operations, batched and jit-safe.
 
-TPU-native replacement for the reference's hand-rolled pose algebra
+JAX replacement for the reference's hand-rolled pose algebra
 (``CMiniVisionToolbox``: Rodrigues conversions ``CMiniVisionToolbox.h:36-37``,
 skew matrix ``:48``, se(3)-vector-to-isometry ``getTransformationFromVector``
 ``:49`` used by every Gauss-Newton solver, and the ad-hoc rotation
@@ -16,7 +16,7 @@ Design notes
 * Every function is elementwise-batchable with ``jax.vmap`` and contains no
   data-dependent Python control flow; small-angle branches use ``jnp.where``
   with Taylor fallbacks that are safe in float32.
-* No dtype is forced: float32 on TPU, float64 under x64 CPU tests.
+* No dtype is forced: float32 on the device, float64 under x64 CPU tests.
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ import jax.numpy as jnp
 
 _EPS = 1e-8
 
-# TPU matmul default precision is bfloat16; pose algebra needs true float32.
+# Accelerator matmuls may default to reduced precision (TF32 on GPUs); pose
+# algebra needs true float32.
 _PREC = jax.lax.Precision.HIGHEST
 
 

@@ -1,6 +1,6 @@
 """Multi-view triangulation + epipolar geometry, batched.
 
-TPU-native replacement for the linear-triangulation and epipolar utilities of
+JAX replacement for the linear-triangulation and epipolar utilities of
 ``CMiniVisionToolbox`` (essential/fundamental from relative pose
 CMiniVisionToolbox.h:50-52, linear stereo triangulation SVD/QR/LU/DLT variants
 :54-56/:88-94, epipolar distance :57). The reference solves one 4x4 SVD per

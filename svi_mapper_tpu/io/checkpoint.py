@@ -6,8 +6,8 @@ and the final KITTI trajectory log. SURVEY.md §5 requires the new framework
 to checkpoint the *whole* map state (landmark arrays, keyframe poses, pose
 graph, closure edges) so long runs can stop and resume exactly.
 
-Everything device-resident here is a fixed-capacity array (the TPU design
-stance), so a checkpoint is one compressed ``.npz``: the FrameState pytree
+Everything device-resident here is a fixed-capacity array (static shapes
+compile once), so a checkpoint is one compressed ``.npz``: the FrameState pytree
 leaves, the keyframe database pools, and the ragged host-side records
 (keyframes, closures) stored as concatenated arrays + offsets. A JSON
 manifest carries the scalars, the tracking parameters, and the camera

@@ -1,4 +1,4 @@
-"""Fixed-capacity landmark table: the TPU-native map data model.
+"""Fixed-capacity landmark table: the device-resident map data model.
 
 Replaces the reference's heap-allocated ``CLandmark`` objects
 (CLandmark.h:46-55: reference L/R descriptors, measurement history,
@@ -19,13 +19,13 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from svi_mapper_tpu.ops.descriptors import (
     DESCRIPTOR_BITS,
     DESCRIPTOR_WORDS,
     unpack_bits,
 )
+from svi_mapper_tpu.utils import struct
 
 
 @struct.dataclass

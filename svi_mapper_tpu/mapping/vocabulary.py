@@ -1,6 +1,6 @@
 """Binary bag-of-words vocabulary: hierarchical k-medians over BRIEF bits.
 
-TPU-native analog of the reference's DBoW2 place-recognition path: the
+JAX analog of the reference's DBoW2 place-recognition path: the
 reference builds a branching-factor-10, depth-6 BRIEF vocabulary offline
 (``create_vocabulary_dbow2.cpp``, vocab file loaded at ``CTrackerGT.cpp:39``)
 and queries a ``BriefDatabase`` per keyframe (``CTrackerGT.cpp:411``) before
@@ -12,7 +12,7 @@ centroids plus an XOR-popcount argmin over the whole descriptor batch.
 
 BoW vectors are dense ``[k**levels]`` TF-IDF histograms (default 8^4 = 4096
 words), so database scoring is a single ``[K, W]`` broadcast L1 reduction —
-MXU/VPU-friendly, no inverted-file pointer chasing. Scoring uses the DBoW2
+dense and batched, no inverted-file pointer chasing. Scoring uses the DBoW2
 L1 norm: ``s(v, w) = 1 - 0.5 * |v/|v| - w/|w||_1``.
 
 This is the *optional* shortlist path for :func:`mapping.closure.find_closures`
@@ -223,7 +223,7 @@ def node_ids(vocab: Vocabulary, desc: jax.Array, levels: int) -> jax.Array:
     candidates iff their descriptors descend through the same vocabulary
     node at this level. Here the inverted per-node feature lists become a
     per-descriptor node-id vector, and 'sharing a node' becomes an
-    equality mask on the dense [P, P] Hamming matrix — the TPU-shaped
+    equality mask on the dense [P, P] Hamming matrix — the dense
     direct index (no pointer-chased lists; one extra descent dispatch)."""
     return _descend(vocab.centroids, vocab.child_valid, desc, vocab.k,
                     levels=min(levels, vocab.levels))

@@ -1,6 +1,6 @@
 """The per-frame SLAM step: one jitted, fully on-device computation.
 
-This is the TPU-native equivalent of the reference's per-frame call tree
+This is the JAX equivalent of the reference's per-frame call tree
 (SURVEY.md §3.1/§3.2: ``CTracker*::process`` -> ``_trackLandmarks`` ->
 track / posit / measurement insertion / landmark optimization / keyframe
 check / re-detection). The reference interleaves host loops and exceptions;
@@ -20,7 +20,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from svi_mapper_tpu.config import TrackingParams
 from svi_mapper_tpu.frontend import epipolar as epi
@@ -35,6 +34,7 @@ from svi_mapper_tpu.ops.descriptors import brief_at, smooth_brief_dense
 from svi_mapper_tpu.ops.image import box_blur
 from svi_mapper_tpu.solvers.landmark_opt import optimize_landmarks
 from svi_mapper_tpu.solvers.posit import solve_stereo_posit
+from svi_mapper_tpu.utils import struct
 
 
 @struct.dataclass
@@ -143,25 +143,8 @@ def process_frame(
 ) -> tuple[FrameState, FrameOutput]:
     """Process one stereo frame. Compiled once per image shape."""
     # --- image preprocessing + dense descriptor fields -------------------
-    # Edge-extend the images to a 16-pixel-multiple width BEFORE describing:
-    # the Pallas tracking kernel needs 128-word-aligned field rows, and
-    # padding the raw image (~2 MB) is an order of magnitude cheaper than
-    # padding the 15 MB descriptor field every frame. Both backends see the
-    # same padded field, so CPU/TPU results stay in agreement; detection
-    # still runs on the unpadded image.
-    wp = -(-img_left.shape[1] // 16) * 16
-    if wp != img_left.shape[1]:
-        ext = ((0, 0), (0, wp - img_left.shape[1]))
-        img_l_ext = jnp.pad(img_left, ext, mode="edge")
-        img_r_ext = jnp.pad(img_right, ext, mode="edge")
-    else:
-        img_l_ext, img_r_ext = img_left, img_right
-    # Each field is materialized exactly once: both hot consumers are Pallas
-    # kernels (tracking band-sweep + stereo profile), whose operands XLA must
-    # materialize — which also stops it from re-fusing the 256-comparison
-    # BRIEF computation into the remaining small point-gather consumers.
-    dense_l = smooth_brief_dense(img_l_ext)
-    dense_r = smooth_brief_dense(img_r_ext)
+    dense_l = smooth_brief_dense(img_left)
+    dense_r = smooth_brief_dense(img_right)
 
     # --- pose prior ------------------------------------------------------
     if use_gt_pose or use_external_prior:

@@ -1,6 +1,6 @@
 """Stereo + IMU SLAM: the SVI model family.
 
-TPU-native equivalent of ``CTrackerSVI`` (CTrackerSVI.cpp): images are
+JAX equivalent of ``CTrackerSVI`` (CTrackerSVI.cpp): images are
 histogram-equalized and undistorted/rectified (:339-341), the pose prior
 comes from IMU integration instead of constant velocity (rotation from the
 integrated gyro, translation from v dt + 1/2 a dt^2, :356-364, damped on

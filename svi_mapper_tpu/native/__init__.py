@@ -1,6 +1,6 @@
 """Native (C++) host runtime: descriptor index, cloud codec, dump loader.
 
-The TPU owns all dense math (svi_mapper_tpu.ops / solvers); this package
+The device owns all dense math (svi_mapper_tpu.ops / solvers); this package
 provides the *host-side* runtime the reference implements in C++ —
 
 * :class:`DescriptorIndex` — incremental binary descriptor search tree for

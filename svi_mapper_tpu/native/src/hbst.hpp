@@ -9,7 +9,7 @@
 // and votes for the owning keyframe of its best match.  This is a fresh
 // implementation (HBST-style), not a translation: nodes split lazily on
 // insertion overflow instead of eagerly at build time, and matching returns
-// per-keyframe vote counts directly (the only thing the TPU pipeline needs
+// per-keyframe vote counts directly (the only thing the device pipeline needs
 // from the host index -- candidate shortlisting; exact pool-vs-pool match
 // geometry runs on device, svi_mapper_tpu/mapping/closure.py).
 //

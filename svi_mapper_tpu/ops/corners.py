@@ -1,6 +1,6 @@
 """Shi-Tomasi corner detection with masked grid NMS and fixed-K output.
 
-TPU-native replacement for the reference's ``cv::GoodFeaturesToTrackDetector``
+JAX replacement for the reference's ``cv::GoodFeaturesToTrackDetector``
 (1000 features, quality 0.01, min distance 7 — CFundamentalMatcher.cpp:18)
 including the active-landmark exclusion mask (CFundamentalMatcher.cpp:2043)
 and the regional detection used by tracking stage 2

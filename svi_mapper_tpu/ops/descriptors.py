@@ -1,6 +1,6 @@
 """BRIEF-style binary descriptor extraction as a batched device op.
 
-TPU-native replacement for OpenCV's ``BriefDescriptorExtractor`` (used at
+JAX replacement for OpenCV's ``BriefDescriptorExtractor`` (used at
 CTriangulator.cpp:11 and throughout CFundamentalMatcher) and the reference's
 ``CDescriptorBRIEF`` 256-bit type (CDescriptorBRIEF.h:16-37,
 DESCRIPTOR_SIZE_BITS=256 Types.h:6).
@@ -23,8 +23,6 @@ and matching share it, exactly like the reference shares one OpenCV pattern.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,7 +30,7 @@ import numpy as np
 DESCRIPTOR_BITS = 256          # ref Types.h:6
 DESCRIPTOR_WORDS = 8           # 256 bits packed into 8 x uint32
 PATCH_SIZE = 32                # ref: OpenCV BRIEF 48x48 window, KERNEL 9;
-PATCH_HALF = PATCH_SIZE // 2   # 32 keeps VMEM small and matches 256 pairs
+PATCH_HALF = PATCH_SIZE // 2   # 32 keeps the pattern reach small
 
 
 def _make_pattern(seed: int = 17) -> tuple[np.ndarray, np.ndarray]:
@@ -116,18 +114,18 @@ def brief_descriptors(img_smooth: jax.Array, uv: jax.Array) -> jax.Array:
 def brief_dense(img_smooth: jax.Array) -> jax.Array:
     """Dense BRIEF: the packed descriptor of EVERY pixel, as one fused op.
 
-    The TPU-native replacement for the reference's per-candidate descriptor
+    The JAX replacement for the reference's per-candidate descriptor
     extraction along epipolar scanlines (CTriangulator.cpp:65-117 extracts
     BRIEF for a dense row of candidate keypoints every frame; the epipolar
     tracker re-extracts along sampled curves, CFundamentalMatcher.cpp:
     2142-2397). Computing bit i for all pixels is one shifted-image
-    comparison ``img[y+ay, x+ax] < img[y+by, x+bx]`` — 256 fused VPU ops —
-    after which *all* matching anywhere in the frame is a cheap gather into
-    the [H, W, 8] uint32 field. Descriptors agree bit-for-bit with
+    comparison ``img[y+ay, x+ax] < img[y+by, x+bx]`` (256 fused elementwise
+    ops), after which *all* matching anywhere in the frame is a cheap gather
+    into the [H, W, 8] uint32 field. Descriptors agree bit-for-bit with
     :func:`brief_descriptors` away from the image border.
 
-    Cost for KITTI (376x1241): ~120M comparisons + packing, well under a
-    millisecond on one TPU chip; field size 15 MB in HBM.
+    Cost for KITTI (376x1241): ~120M comparisons + packing; the field is
+    15 MB of device memory.
     """
     h, w = img_smooth.shape
     pad = PATCH_HALF
@@ -149,109 +147,12 @@ def brief_dense(img_smooth: jax.Array) -> jax.Array:
     return jnp.stack(words, axis=-1)
 
 
-def _brief_dense_kernel(img_ref, out_ref):
-    """Pallas tile kernel: fused 5x5 box blur + 256 BRIEF comparisons.
-
-    ``img_ref`` is an overlapping input tile [TH + 2*HALO, TW + 2*HALO] of
-    the edge-padded image; ``out_ref`` is [8, TH, TW] packed words. Keeping
-    the tile in VMEM turns the XLA path's ~512 full-image HBM passes into a
-    single halo-tile read — the op becomes compute-bound.
-    """
-    tile = img_ref[:]                       # aligned input window in VMEM
-    th = out_ref.shape[1]
-    tw = out_ref.shape[2]
-    halo = _HALO
-
-    # separable 5x5 box blur over the region needed by the pattern:
-    # output-pixel offsets span [-15, 15], so blur the central
-    # [th + 30, tw + 30] window (halo = 17 = 15 pattern + 2 blur).
-    # The input window is over-read to TPU-aligned sizes; extra rows/cols
-    # are simply never sliced.
-    ph, pw = th + 2 * (halo - 2), tw + 2 * (halo - 2)
-    # same arithmetic (taps * 0.2 per separable pass, same accumulation
-    # order) as ops.image.box_blur -> interior bits are EXACTLY equal
-    # all offsets are static Python ints -> plain static slices (the only
-    # slicing Mosaic lowers for values inside a kernel)
-    acc = jnp.zeros((ph, tile.shape[1]), jnp.float32)
-    for dy in range(5):
-        acc = acc + tile[dy:dy + ph, :] * jnp.float32(0.2)
-    blur = jnp.zeros((ph, pw), jnp.float32)
-    for dx in range(5):
-        blur = blur + acc[:, dx:dx + pw] * jnp.float32(0.2)
-
-    # blurred value at output-pixel offset (dy, dx) in [-15, 15]
-    def shifted(dy, dx):
-        r0 = dy + halo - 2
-        c0 = dx + halo - 2
-        return blur[r0:r0 + th, c0:c0 + tw]
-
-    for wi in range(DESCRIPTOR_WORDS):
-        word = jnp.zeros((th, tw), jnp.uint32)
-        for bi in range(32):
-            i = wi * 32 + bi
-            ay, ax = int(_PATTERN_A[i, 1]) - PATCH_HALF, int(_PATTERN_A[i, 0]) - PATCH_HALF
-            by, bx = int(_PATTERN_B[i, 1]) - PATCH_HALF, int(_PATTERN_B[i, 0]) - PATCH_HALF
-            bit = shifted(ay, ax) < shifted(by, bx)
-            word = word | (bit.astype(jnp.uint32) << jnp.uint32(bi))
-        out_ref[wi] = word
-
-
-_TILE_H = 16
-_TILE_W = 128
-_HALO = PATCH_HALF - 1 + 2   # 15 px pattern reach + 2 px blur = 17
-# input windows over-read up to TPU-aligned sizes (divisible by 8 x 128)
-_IN_H = -(-(_TILE_H + 2 * _HALO) // 8) * 8        # 56
-_IN_W = -(-(_TILE_W + 2 * _HALO) // 128) * 128    # 256
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def brief_dense_fused(img: jax.Array, interpret: bool = False) -> jax.Array:
-    """Fused smooth+describe: raw image -> dense packed BRIEF field.
-
-    Semantically identical to ``brief_dense(box_blur(img, 5))`` (tested
-    bit-exact); implemented as one Pallas kernel over halo tiles.
-    """
-    from jax.experimental import pallas as pl
-
-    h, w = img.shape
-    ph = (-h) % _TILE_H
-    pw = (-w) % _TILE_W
-    hp, wp = h + ph, w + pw
-    # edge-pad: halo for the pattern+blur reach, tile alignment, and the
-    # aligned over-read of the last tile's input window
-    pad_bottom = _HALO + ph + (_IN_H - _TILE_H - 2 * _HALO)
-    pad_right = _HALO + pw + (_IN_W - _TILE_W - 2 * _HALO)
-    padded = jnp.pad(img, ((_HALO, pad_bottom), (_HALO, pad_right)), mode="edge")
-
-    out = pl.pallas_call(
-        _brief_dense_kernel,
-        out_shape=jax.ShapeDtypeStruct((DESCRIPTOR_WORDS, hp, wp), jnp.uint32),
-        grid=(hp // _TILE_H, wp // _TILE_W),
-        in_specs=[
-            # overlapping halo tiles: pl.Element makes the index map return
-            # ELEMENT offsets, so tile (i, j) reads the aligned window
-            # starting at (i*TILE_H, j*TILE_W)
-            pl.BlockSpec(
-                (pl.Element(_IN_H), pl.Element(_IN_W)),
-                lambda i, j: (i * _TILE_H, j * _TILE_W),
-            )
-        ],
-        out_specs=pl.BlockSpec(
-            (DESCRIPTOR_WORDS, _TILE_H, _TILE_W), lambda i, j: (0, i, j)
-        ),
-        interpret=interpret,
-    )(padded)
-    return jnp.moveaxis(out[:, :h, :w], 0, -1)
-
-
 def smooth_brief_dense(img: jax.Array) -> jax.Array:
-    """Canonical smooth+describe (XLA path: blur then shifted comparisons).
+    """Canonical smooth+describe: box blur, then the shifted comparisons.
 
-    Note: a fused Pallas variant exists (:func:`brief_dense_fused`) but XLA
-    fuses the shifted-comparison chain well enough that the hand-written
-    kernel measured SLOWER on v5e (6.2 vs 2.1 ms at KITTI resolution) and
-    Mosaic's float reassociation breaks bit-exactness — so the XLA path is
-    canonical and the Pallas kernel stays as an experiment.
+    XLA fuses the blur and the comparison chain; a hand-written fused
+    kernel was tried earlier, lost to this path, and broke bit-exactness
+    through float reassociation, so it was removed.
     """
     from svi_mapper_tpu.ops.image import box_blur
 

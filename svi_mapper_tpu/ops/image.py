@@ -1,6 +1,6 @@
 """Image-plane device ops: blur, gradients, histogram equalization, remap.
 
-TPU-native replacement for the reference's OpenCV image calls:
+JAX replacement for the reference's OpenCV image calls:
 ``cv::GaussianBlur``-style smoothing before BRIEF extraction (the reference
 relies on OpenCV's BriefDescriptorExtractor which smooths internally),
 ``cv::equalizeHist`` (CTrackerSVI.cpp:339-341), and
@@ -8,8 +8,7 @@ relies on OpenCV's BriefDescriptorExtractor which smooths internally),
 (CStereoCamera.h:89-107, CStereoCameraIMU.h:20-52).
 
 All ops take float32 single-channel images shaped ``[H, W]`` and are pure jnp
-so XLA fuses them into the frame step; separable convolutions ride the MXU
-as implicit matmuls.
+so XLA fuses them into the frame step.
 """
 
 from __future__ import annotations
@@ -25,8 +24,8 @@ def _conv1d(img: jax.Array, kernel: jax.Array, axis: int) -> jax.Array:
     """Separable 1D convolution along an axis with SAME edge padding.
 
     Implemented as shift-multiply-accumulate over the (small, static) tap
-    count rather than ``conv_general_dilated``: a 1-channel conv wastes the
-    MXU, while k shifted adds fuse into a couple of VPU passes.
+    count rather than ``conv_general_dilated``: k shifted adds of a
+    1-channel image fuse into a couple of elementwise passes.
     """
     k = kernel.shape[0]
     pad = k // 2
@@ -252,11 +251,3 @@ def stereo_rectify(
     return R_rect0, R_rect1, P0, P1
 
 
-def pad_to_multiple(img: jax.Array, multiple: int = 128) -> jax.Array:
-    """Pad an image up to tile-aligned dimensions (TPU lane alignment)."""
-    h, w = img.shape
-    ph = (-h) % multiple
-    pw = (-w) % multiple
-    if ph == 0 and pw == 0:
-        return img
-    return jnp.pad(img, ((0, ph), (0, pw)))

@@ -1,4 +1,4 @@
-"""Multi-host (pod-slice) runtime: jax.distributed bring-up + pod meshes.
+"""Multi-host runtime: jax.distributed bring-up + (host, map) meshes.
 
 The reference has no distributed backend at all (single process, SURVEY.md
 §2.9); BASELINE.json config 5 requires a multi-host path with >= 70 %
@@ -6,17 +6,18 @@ frames/s scaling efficiency at N >= 2 hosts. This module is the thin,
 testable bring-up layer:
 
 * :func:`initialize` — `jax.distributed.initialize` wrapper that no-ops in
-  single-process runs (so the same entry point works on a laptop, one TPU
-  VM, or a pod slice launched with the standard coordinator env vars).
+  single-process runs (so the same entry point works on a laptop, one GPU
+  host, or a cluster launched with the standard coordinator env vars).
 * :func:`make_pod_mesh` — a ``(host, map)`` mesh: the landmark/map-block
-  axis shards within a host over ICI, keyframe blocks shard across hosts
-  over DCN. For single-host runs the ``host`` axis has size 1 and every
-  collective stays on ICI.
+  axis shards within a host over the intra-host links (NVLink), keyframe
+  blocks shard across hosts over the network. For single-host runs the
+  ``host`` axis has size 1 and every collective stays inside the host.
 * :func:`host_local_slice` — which rows of a globally-sharded landmark axis
   live on this process (for host-side IO like checkpoint writes).
 
 The heavy lifting (sharded Schur BA) is in :mod:`parallel.sharded_ba`; it
-works unchanged on a pod mesh because only the sharding annotations change.
+works unchanged on a multi-host mesh because only the sharding annotations
+change.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ def initialize(
 ) -> bool:
     """Bring up jax.distributed across hosts; returns True if multi-process.
 
-    With no arguments, reads the standard environment (JAX on TPU pods
-    auto-detects; elsewhere COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID)
+    With no arguments, reads the standard environment
+    (COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID)
     and silently stays single-process when nothing is configured.
     """
     global _initialized
@@ -51,7 +52,7 @@ def initialize(
     if process_id is None and "PROCESS_ID" in os.environ:
         process_id = int(os.environ["PROCESS_ID"])
     if coordinator_address is None and num_processes is None:
-        # single-process run (or TPU pod auto-detect handled by the runtime)
+        # single-process run
         _initialized = True
         return False
     jax.distributed.initialize(
@@ -71,8 +72,9 @@ def make_pod_mesh(
 
     ``hosts`` defaults to ``jax.process_count()``; devices are arranged so
     each row of the mesh is one host's local chips — collectives over
-    ``map`` ride ICI, collectives over ``host`` cross DCN (the scaling-book
-    layout rule: put the fast-changing axis on the fast interconnect).
+    ``map`` stay inside a host (NVLink), collectives over ``host`` cross the
+    network (the scaling-book layout rule: put the fast-changing axis on
+    the fast interconnect).
     """
     devs = jax.devices()
     n_hosts = hosts or max(jax.process_count(), 1)

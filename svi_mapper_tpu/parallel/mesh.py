@@ -7,7 +7,7 @@ per-landmark GN) and *map blocks* (BA, later rounds): the landmark axis
 shards over a 1-D ``map`` mesh axis, images and poses replicate, and XLA
 inserts the ``psum`` collectives for the pose solver's Hessian reduction
 automatically from the sharding annotations (the scaling-book recipe: pick
-a mesh, annotate shardings, let XLA place collectives over ICI).
+a mesh, annotate shardings, let XLA place the collectives).
 """
 
 from __future__ import annotations

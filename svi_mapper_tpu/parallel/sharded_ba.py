@@ -10,7 +10,7 @@ collectives): the observation tensor ``[K, L, 4]``, landmark states
 over the 1-D ``map`` mesh axis. Poses and the reduced [6K, 6K] camera
 system replicate. The Schur reduction ``S = H_pp - sum_l W_l H_ll^-1 W_l^T``
 contracts over the sharded axis, so XLA partitions it into per-device
-partial sums + one ``psum`` over ICI — exactly the hand-written MPI
+partial sums + one ``psum`` (NCCL on GPUs) — exactly the hand-written MPI
 reduction of distributed BA systems, derived automatically from sharding
 annotations. The dense [6K, 6K] solve then runs replicated (it is tiny).
 

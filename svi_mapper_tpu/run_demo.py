@@ -37,6 +37,10 @@ def main() -> None:
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
+    from svi_mapper_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from svi_mapper_tpu.config import DEFAULT_PARAMS
     from svi_mapper_tpu.eval import trajectory as ev
     from svi_mapper_tpu.io.synthetic import SyntheticSequence

@@ -1,17 +1,17 @@
 """Bundle adjustment: batched Schur-complement Levenberg-Marquardt.
 
-TPU-native replacement for the full-graph stage of ``Cg2oOptimizer``
+JAX replacement for the full-graph stage of ``Cg2oOptimizer``
 (Cg2oOptimizer.cpp:232-522: BlockSolverX + CHOLMOD + Levenberg over pose and
 landmark vertices with Cauchy-robust stereo measurement edges, iterated in
 chunks until <1 % chi^2 improvement, :954-980). g2o's sparse-direct solve is
-pointer-heavy and hostile to TPU; the classic Schur trick keeps everything
+pointer-heavy and serial; the classic Schur trick keeps everything
 block-dense and batched:
 
   * residuals/Jacobians for ALL (keyframe, landmark) observations at once
     from a dense ``[K, L, 4]`` observation tensor + mask (window BA sizes:
     K <= ~32 poses, L <= ~4096 landmarks — the dense tensor is ~2 MB);
-  * Hessian blocks H_pp [K,6,6], H_ll [L,3,3], H_pl [K,L,6,3] by einsum
-    (MXU work), landmark blocks inverted in parallel (batched 3x3);
+  * Hessian blocks H_pp [K,6,6], H_ll [L,3,3], H_pl [K,L,6,3] by batched
+    matmuls, landmark blocks inverted in parallel (batched 3x3);
   * the reduced camera system S = H_pp - W H_ll^-1 W^T is a small dense
     [6K, 6K] matrix solved by Cholesky;
   * Levenberg damping with accept/reject on chi^2, fixed iteration cap,
@@ -34,36 +34,14 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from svi_mapper_tpu.geometry import se3
 from svi_mapper_tpu.geometry.camera import StereoCamera
 
 from svi_mapper_tpu.geometry.linalg import inv3x3 as _inv3x3
+from svi_mapper_tpu.utils import struct
 
 _PREC = jax.lax.Precision.HIGHEST
-
-# largest keyframe window the single-grid fused Pallas Schur-assembly
-# kernel (ops.ba_kernel.schur_assemble) is instantiated for: its VMEM
-# working set is 2 x (K6P)^2 scratch + 7 [K6P, BL] row matrices
-# (+ double-buffered in/out blocks) — K = 64 (K6P = 384) totals ~14 MB
-# against the ~16 MB VMEM budget and does not fit with pipelining;
-# K <= 32 (K6P = 256, ~8 MB) runs comfortably. Windows past it use the
-# K-tiled kernel (schur_assemble_tiled, KT = 32 keyframes per tile) up to
-# SCHUR_KERNEL_TILED_MAX_K; anything else falls back to the XLA path.
-SCHUR_KERNEL_MAX_K = 32
-SCHUR_KERNEL_TILED_MAX_K = 128
-
-
-def schur_kernel_auto(K: int, dtype=jnp.float32) -> bool:
-    """The ``use_schur_kernel=None`` auto gate of :func:`bundle_adjust`,
-    exposed so benchmarks/tools can certify which path a given problem
-    shape dispatches to (VERDICT r2: the bench must report the measured
-    kernel path, not assume it)."""
-    return (jax.default_backend() == "tpu" and dtype == jnp.float32
-            and (K <= SCHUR_KERNEL_MAX_K
-                 or (K % 32 == 0 and K <= SCHUR_KERNEL_TILED_MAX_K)))
-
 
 @struct.dataclass
 class BAResult:
@@ -120,7 +98,7 @@ def _adjoint(T: jax.Array) -> jax.Array:
     return jnp.concatenate([top, bot], axis=-2)
 
 
-@functools.partial(jax.jit, static_argnames=("max_iterations", "use_schur_kernel"))
+@functools.partial(jax.jit, static_argnames=("max_iterations",))
 def bundle_adjust(
     T_wc: jax.Array,          # [K,4,4]
     points_w: jax.Array,      # [L,3]
@@ -151,11 +129,7 @@ def bundle_adjust(
                                          # dInformationFactor = 1/z,
                                          # Cg2oOptimizer.cpp:1403-1466);
                                          # multiplies into the mask/robust
-                                         # weight on BOTH the XLA and the
-                                         # fused-kernel path
-    use_schur_kernel: bool | None = None,  # fused Pallas Schur assembly
-                                         # (ops.ba_kernel); None = auto: on
-                                         # for float32 problems on TPU
+                                         # weight
 ) -> BAResult:
     fx, fy = cam.left.fx, cam.left.fy
     cx, cy = cam.left.cx, cam.left.cy
@@ -220,76 +194,52 @@ def bundle_adjust(
     r0, _ = _residuals(T_wc, points_w, obs_uv, fx, fy, cx, cy, bq)
     chi2_init = _chi2(r0, robust_w(r0)) + odo_chi2(T_wc) + grav_chi2(T_wc)
 
-    if use_schur_kernel is None:
-        use_kernel = schur_kernel_auto(K, dtype)
-    else:
-        use_kernel = use_schur_kernel
-
     def lm_step(carry):
         T, X, lam, chi2_prev, it, done = carry
-        if use_kernel:
-            # fused Pallas assembly: residuals/weights/Jacobians computed in
-            # VMEM, never materialized (ops.ba_kernel); returns the UNdamped
-            # S = H_pp - W Hll^-1 W^T and the backsub operands. Windows past
-            # the single-grid VMEM budget use the K-tiled variant.
-            from svi_mapper_tpu.ops.ba_kernel import (schur_assemble,
-                                                      schur_assemble_tiled)
+        r, p_c = _residuals(T, X, obs_uv, fx, fy, cx, cy, bq)
+        w = robust_w(r)                                          # [K,L]
+        # in-front mask (behind-camera obs excluded)
+        w = w * (p_c[..., 2] > 0.05)
+        J_pose, J_point = _jacobians(p_c, T, fx, fy, bq)
 
-            assemble = (schur_assemble if K <= SCHUR_KERNEL_MAX_K
-                        else schur_assemble_tiled)
-            S, rhs, H_ll_inv, b_l, Wpl = assemble(
-                T, X, obs_uv, maskf, lam,
-                fx=fx, fy=fy, cx=cx, cy=cy, bq=bq,
-                kernel_px2=kernel_px2, point_damping=point_damping,
-                interpret=jax.default_backend() != "tpu",
-            )
-            S = S.at[jnp.arange(K), :, jnp.arange(K), :].add(
-                lam * jnp.eye(6, dtype=dtype))
-        else:
-            r, p_c = _residuals(T, X, obs_uv, fx, fy, cx, cy, bq)
-            w = robust_w(r)                                          # [K,L]
-            # in-front mask (behind-camera obs excluded)
-            w = w * (p_c[..., 2] > 0.05)
-            J_pose, J_point = _jacobians(p_c, T, fx, fy, bq)
+        # Hessian blocks as explicit batched matmuls over the flattened
+        # observation axis
+        Jp = J_pose.reshape(K, L * 4, 6)
+        Jpw = (J_pose * w[..., None, None]).reshape(K, L * 4, 6)
+        Jl = J_point.transpose(1, 0, 2, 3).reshape(L, K * 4, 3)
+        Jlw = (J_point * w[..., None, None]).transpose(1, 0, 2, 3).reshape(L, K * 4, 3)
+        rk = r.reshape(K, L * 4, 1)
+        rl = r.transpose(1, 0, 2).reshape(L, K * 4, 1)
 
-            # Hessian blocks as explicit batched matmuls: einsum spellings of
-            # these contractions lower to convolutions on TPU (~4x slower)
-            Jp = J_pose.reshape(K, L * 4, 6)
-            Jpw = (J_pose * w[..., None, None]).reshape(K, L * 4, 6)
-            Jl = J_point.transpose(1, 0, 2, 3).reshape(L, K * 4, 3)
-            Jlw = (J_point * w[..., None, None]).transpose(1, 0, 2, 3).reshape(L, K * 4, 3)
-            rk = r.reshape(K, L * 4, 1)
-            rl = r.transpose(1, 0, 2).reshape(L, K * 4, 1)
+        H_pp = jnp.matmul(Jpw.transpose(0, 2, 1), Jp, precision=_PREC)   # [K,6,6]
+        H_ll = jnp.matmul(Jlw.transpose(0, 2, 1), Jl, precision=_PREC)   # [L,3,3]
+        # tiny-matrix batched contractions (r-dim 4, m-dim 3) are unrolled
+        # into broadcast-sums, which fuse into one elementwise pass
+        Jpw4 = J_pose * w[..., None, None]                        # [K,L,4,6]
+        H_pl = sum(
+            Jpw4[..., rr, :, None] * J_point[..., rr, None, :] for rr in range(4)
+        )                                                         # [K,L,6,3]
+        b_p = jnp.matmul(Jpw.transpose(0, 2, 1), rk, precision=_PREC)[..., 0]  # [K,6]
+        b_l = jnp.matmul(Jlw.transpose(0, 2, 1), rl, precision=_PREC)[..., 0]  # [L,3]
 
-            H_pp = jnp.matmul(Jpw.transpose(0, 2, 1), Jp, precision=_PREC)   # [K,6,6]
-            H_ll = jnp.matmul(Jlw.transpose(0, 2, 1), Jl, precision=_PREC)   # [L,3,3]
-            # tiny-matrix batched contractions (r-dim 4, m-dim 3) are unrolled
-            # into broadcast-sums: as matmuls they lower to slow convolutions
-            Jpw4 = J_pose * w[..., None, None]                        # [K,L,4,6]
-            H_pl = sum(
-                Jpw4[..., rr, :, None] * J_point[..., rr, None, :] for rr in range(4)
-            )                                                         # [K,L,6,3]
-            b_p = jnp.matmul(Jpw.transpose(0, 2, 1), rk, precision=_PREC)[..., 0]  # [K,6]
-            b_l = jnp.matmul(Jlw.transpose(0, 2, 1), rl, precision=_PREC)[..., 0]  # [L,3]
+        # Levenberg damping
+        H_pp = H_pp + lam * jnp.eye(6, dtype=dtype)[None]
+        H_ll = H_ll + (lam + point_damping) * jnp.eye(3, dtype=dtype)[None]
 
-            # Levenberg damping
-            H_pp = H_pp + lam * jnp.eye(6, dtype=dtype)[None]
-            H_ll = H_ll + (lam + point_damping) * jnp.eye(3, dtype=dtype)[None]
+        H_ll_inv = _inv3x3(H_ll)                                  # [L,3,3] batched
 
-            H_ll_inv = _inv3x3(H_ll)                                  # [L,3,3] batched
-
-            # Schur complement S = H_pp_diag - W Hll^-1 W^T as ONE [K6, L3] x
-            # [L3, K6] matmul on the MXU
-            W_Hinv = sum(
-                H_pl[..., :, jj, None] * H_ll_inv[None, :, None, jj, :]
-                for jj in range(3)
-            )                                                         # [K,L,6,3]
-            A = W_Hinv.transpose(0, 2, 1, 3).reshape(K * 6, L * 3)
-            B = H_pl.transpose(0, 2, 1, 3).reshape(K * 6, L * 3)
-            S_off = jnp.matmul(A, B.T, precision=_PREC).reshape(K, 6, K, 6)
-            S = -S_off
-            S = S.at[jnp.arange(K), :, jnp.arange(K), :].add(H_pp)
-            rhs = b_p - jnp.matmul(A, b_l.reshape(L * 3), precision=_PREC).reshape(K, 6)
+        # Schur complement S = H_pp_diag - W Hll^-1 W^T as ONE [K6, L3] x
+        # [L3, K6] matmul
+        W_Hinv = sum(
+            H_pl[..., :, jj, None] * H_ll_inv[None, :, None, jj, :]
+            for jj in range(3)
+        )                                                         # [K,L,6,3]
+        A = W_Hinv.transpose(0, 2, 1, 3).reshape(K * 6, L * 3)
+        B = H_pl.transpose(0, 2, 1, 3).reshape(K * 6, L * 3)
+        S_off = jnp.matmul(A, B.T, precision=_PREC).reshape(K, 6, K, 6)
+        S = -S_off
+        S = S.at[jnp.arange(K), :, jnp.arange(K), :].add(H_pp)
+        rhs = b_p - jnp.matmul(A, b_l.reshape(L * 3), precision=_PREC).reshape(K, 6)
 
         if use_odo:
             # J_{k+1} = I, J_k = -Adj(D_k) (left-multiplicative updates)
@@ -335,18 +285,12 @@ def bundle_adjust(
         dp = -jax.scipy.linalg.cho_solve(c_lo, rhs.reshape(K * 6)).reshape(K, 6)
         dp = dp * free[:, None]
         # back-substitute landmark updates
-        if use_kernel:
-            Wdp = jnp.einsum("bql,q->lb", Wpl, dp.reshape(K * 6),
-                             precision=_PREC)                     # [L,3]
-            dx = -jnp.matmul(H_ll_inv, (b_l + Wdp)[..., None],
-                             precision=_PREC)[..., 0]
-        else:
-            dx = -jnp.matmul(
-                H_ll_inv,
-                (b_l + jnp.matmul(B.T, dp.reshape(K * 6),
-                                  precision=_PREC).reshape(L, 3))[..., None],
-                precision=_PREC,
-            )[..., 0]
+        dx = -jnp.matmul(
+            H_ll_inv,
+            (b_l + jnp.matmul(B.T, dp.reshape(K * 6),
+                              precision=_PREC).reshape(L, 3))[..., None],
+            precision=_PREC,
+        )[..., 0]
 
         T_new = jax.vmap(se3.apply_left_update)(dp, T)
         X_new = X + dx

@@ -31,9 +31,9 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from svi_mapper_tpu.geometry.camera import StereoCamera
+from svi_mapper_tpu.utils import struct
 
 _PREC = jax.lax.Precision.HIGHEST
 

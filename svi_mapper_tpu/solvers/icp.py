@@ -1,6 +1,6 @@
 """3D-3D point-cloud alignment (ICP with known correspondences), batched.
 
-TPU-native replacement for the reference's loop-closure ICP
+JAX replacement for the reference's loop-closure ICP
 (CTrackerGT.cpp:506-631): Gauss-Newton on a 6-DoF transform aligning the
 matched landmark clouds of a (query, reference) keyframe pair, with
 inverse-depth weighting, a 1.0 m^2 inlier kernel, and the acceptance gates
@@ -16,9 +16,9 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from svi_mapper_tpu.geometry import linalg, se3
+from svi_mapper_tpu.utils import struct
 
 _PREC = jax.lax.Precision.HIGHEST
 

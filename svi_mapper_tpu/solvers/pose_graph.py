@@ -1,6 +1,6 @@
 """Pose-graph optimization: batched robust Gauss-Newton over SE(3) chains.
 
-TPU-native replacement for the reference's trajectory-only g2o graph
+JAX replacement for the reference's trajectory-only g2o graph
 (Cg2oOptimizer.cpp:92-96: BlockSolver_6_3 + CHOLMOD + Gauss-Newton, run for
 up to 1000 iterations after loop-closure consensus, :342-360) with its
 pose-pose ``EdgeSE3`` measurements (information 1e5*I scaled down by
@@ -10,8 +10,8 @@ Design: poses and edges are fixed-capacity masked arrays; each GN iteration
 evaluates every edge residual r = log(T_j inv(T_i) inv(M_ij)) in batch,
 scatter-adds the standard (J_j = I, J_i = -Ad(M_ij)) block Jacobian
 contributions into a dense [6N, 6N] system and solves by Cholesky — N is
-the keyframe count (hundreds), so the dense solve is tiny MXU work compared
-to g2o's sparse factorization machinery.
+the keyframe count (hundreds), so the dense solve is one small matrix
+factorization compared to g2o's sparse factorization machinery.
 """
 
 from __future__ import annotations
@@ -20,9 +20,9 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from svi_mapper_tpu.geometry import se3
+from svi_mapper_tpu.utils import struct
 
 _PREC = jax.lax.Precision.HIGHEST
 

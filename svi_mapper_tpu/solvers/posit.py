@@ -1,6 +1,6 @@
 """Robust stereo-reprojection pose solver ("stereo posit").
 
-TPU-native replacement for ``CSolverStereoPosit``
+JAX replacement for ``CSolverStereoPosit``
 (CSolverStereoPosit.cpp:8-170): Gauss-Newton over all stereo landmark
 matches of one frame; residual is the 4D stereo reprojection error
 (u_L, v_L, u_R, v_R), Jacobian chains the homogeneous-division derivative
@@ -11,7 +11,7 @@ re-orthogonalization (:108-114).
 
 Differences from the reference, by design:
   * the per-match C++ loop becomes one batched residual/Jacobian evaluation
-    and an ``einsum`` Hessian accumulation — MXU/VPU-friendly;
+    and an ``einsum`` Hessian accumulation — dense and batched;
   * the exception-based failure protocol (throw CExceptionPoseOptimization,
     :128-168) becomes a returned ``PositResult.ok`` flag evaluated from the
     same gates: >= 25 points, >= 15 inliers at the 10 px^2 kernel, average
@@ -28,10 +28,10 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from svi_mapper_tpu.geometry import linalg, se3
 from svi_mapper_tpu.geometry.camera import StereoCamera
+from svi_mapper_tpu.utils import struct
 
 
 @struct.dataclass
@@ -127,7 +127,7 @@ def solve_stereo_posit(
 
     def body(carry):
         # run `unroll` GN updates per convergence check: while_loop body
-        # dispatch dominates the tiny 6x6 algebra on TPU, and extra steps
+        # overhead dominates the tiny 6x6 algebra, and extra steps
         # past convergence are numerical no-ops (|xi| <= delta ~ 1e-5)
         for _ in range(max(1, unroll)):
             carry = gn_step(carry)

@@ -27,6 +27,10 @@ def main() -> None:
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
+    from svi_mapper_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import numpy as np
 
     from svi_mapper_tpu.eval import trajectory as ev

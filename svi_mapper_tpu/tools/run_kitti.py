@@ -34,6 +34,10 @@ def main() -> None:
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
+    from svi_mapper_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     import dataclasses
 
     from svi_mapper_tpu.config import DEFAULT_PARAMS

@@ -3,7 +3,7 @@
 The reference uses 10 thin ``std::runtime_error`` wrappers as per-landmark /
 per-frame control flow (src/exceptions/, SURVEY.md §2.6; throw sites
 CTriangulator.cpp:65-117, catch cascades CFundamentalMatcher.cpp:438-488).
-On TPU the per-landmark control flow is masks, not exceptions (the stage
+On the device the per-landmark control flow is masks, not exceptions (the stage
 fallbacks are predicate lattices inside the jitted frame step), so these
 types only surface at the HOST boundary: configuration, file IO, dataset
 playback, and run-level tracking failures.

@@ -81,6 +81,30 @@ def test_expected_hamming_numpy_oracle_fractional():
     assert np.allclose(d, oracle, atol=1e-2)
 
 
+def test_expected_distances_match_float64_at_full_precision():
+    """Bit probabilities k/255 against float64 numpy: both contractions
+    (bitstats.expected_hamming, closure._prob_distance) must keep float32
+    accuracy — a reduced-precision (TF32) product would be off by ~0.1."""
+    from svi_mapper_tpu.mapping.closure import _prob_distance
+
+    q_packed, q_bits = _rand_desc(64)
+    r_packed, r_bits = _rand_desc(48)
+    pq_u8 = RNG.integers(0, 256, size=(64, 256)).astype(np.uint8)
+    pr_u8 = RNG.integers(0, 256, size=(48, 256)).astype(np.uint8)
+    pq, pr = pq_u8 / 255.0, pr_u8 / 255.0               # float64
+
+    def oracle(bits, p):
+        return p.sum(-1)[None, :] + bits.astype(np.float64) @ (1.0 - 2.0 * p).T
+
+    d = np.asarray(bs.expected_hamming(jnp.asarray(q_packed),
+                                       jnp.asarray(pr.astype(np.float32))))
+    np.testing.assert_allclose(d, oracle(q_bits, pr), atol=2e-4)
+    d2 = np.asarray(_prob_distance(jnp.asarray(q_packed), jnp.asarray(pq_u8),
+                                   jnp.asarray(r_packed), jnp.asarray(pr_u8)))
+    want = 0.5 * (oracle(q_bits, pr) + oracle(r_bits, pq).T)
+    np.testing.assert_allclose(d2, want, atol=2e-4)
+
+
 def test_match_probabilistic_one_to_one_and_cutoff():
     t_packed, t_bits = _rand_desc(8)
     pools = t_bits.astype(np.float32)

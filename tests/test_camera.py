@@ -1,16 +1,14 @@
 """Tests for camera models, triangulation, and the calibration parser."""
 
-from pathlib import Path
-
 import numpy as np
 import jax.numpy as jnp
-import pytest
 
 from svi_mapper_tpu import config
 from svi_mapper_tpu.geometry import se3, triangulation
 from svi_mapper_tpu.geometry.camera import StereoCamera, pinhole_from_projection
 
-REF_HW = Path("/root/reference/hardware_parameters")
+# the reference's calibration files, shipped in hardware_parameters/
+REF_HW = config.HARDWARE_PARAMETERS_DIR
 
 # KITTI 00 rectified projection (public dataset calibration constants)
 P_KITTI_L = np.array([[718.856, 0.0, 607.1928, 0.0],
@@ -111,7 +109,6 @@ def test_fov_and_principal_weight():
     assert np.isclose(w[0, 1], 0.0)
 
 
-@pytest.mark.skipif(not REF_HW.exists(), reason="reference calibrations absent")
 def test_parse_reference_calibrations():
     """The reference hardware_parameters files must load unchanged
     (ref CParameterBase.h:169-392)."""

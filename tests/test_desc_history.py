@@ -3,7 +3,7 @@
 The reference keeps each landmark's FULL descriptor history
 (CLandmark.h:46-55 vecDescriptorsLEFT) and draws the "original" side of the
 dual-descriptor tracking gate from it (CFundamentalMatcher.cpp:2336-2397).
-The TPU build bounds that history to a fixed per-landmark snapshot ring
+This build bounds that history to a fixed per-landmark snapshot ring
 (mapping.landmarks: ``desc_hist``/``hist_next``) and anchors the gate on
 the ring entry nearest the current appearance
 (``anchor_descriptors``) — drift-tolerant, still rejecting matches that

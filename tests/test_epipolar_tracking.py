@@ -24,7 +24,7 @@ from svi_mapper_tpu.io.synthetic import SyntheticSequence, default_camera
 from svi_mapper_tpu.mapping import landmarks as lm
 from svi_mapper_tpu.models.tracker import StereoTracker
 from svi_mapper_tpu.ops.descriptors import smooth_brief_dense
-from svi_mapper_tpu.ops.track_kernel import REACH_X, REACH_Y
+from svi_mapper_tpu.frontend.tracking import REACH_X, REACH_Y
 
 
 def _pose(yaw=0.0, pitch=0.0, roll=0.0, t=(0.0, 0.0, 0.0)):

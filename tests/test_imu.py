@@ -176,8 +176,7 @@ def test_gravity_unary_in_ba_aligns_rotation():
     res = ba_mod.bundle_adjust(
         jnp.asarray(T), jnp.asarray(X), jnp.asarray(obs), jnp.asarray(mask),
         cam, jnp.asarray(fix), max_iterations=25, min_rel_improvement=0.0,
-        grav_d=jnp.asarray(down), grav_w=jnp.full((K,), 10.0, jnp.float32),
-        use_schur_kernel=False)
+        grav_d=jnp.asarray(down), grav_w=jnp.full((K,), 10.0, jnp.float32))
     assert float(res.chi2_final) < 0.05 * float(res.chi2_initial)
     T_f = np.asarray(res.T_wc)
     for k in range(1, K):

@@ -2,8 +2,8 @@
 
 A 520-frame synthetic corridor (~200 m of travel) through the FULL SLAM
 system in throughput mode, with bounds calibrated against the 2026-08-19
-build (raw ATE 0.94 m, rel translation 4.8%, rel rotation 2.1e-3 rad/frame
-on TPU; CPU matches bit-wise for in-FoV tracking). Catches f32 drift,
+build (raw ATE 0.94 m, rel translation 4.8%, rel rotation 2.1e-3
+rad/frame). Catches f32 drift,
 world-shift regressions, and back-end gating regressions that short tests
 cannot see.
 """

@@ -191,16 +191,6 @@ def test_hamming_mxu_agrees(rng):
     assert np.array_equal(d1, d2)
 
 
-def test_hamming_pallas_interpret_agrees(rng):
-    a_bits = rng.random((130, 256)) > 0.5
-    b_bits = rng.random((200, 256)) > 0.5
-    a = descriptors.pack_bits(jnp.asarray(a_bits))
-    b = descriptors.pack_bits(jnp.asarray(b_bits))
-    d1 = np.asarray(hamming.hamming_packed(a, b))
-    d2 = np.asarray(hamming.hamming_pallas(a, b, interpret=True))
-    assert np.array_equal(d1, d2)
-
-
 def test_match_nearest_with_cutoff(rng):
     bits = rng.random((20, 256)) > 0.5
     ref = descriptors.pack_bits(jnp.asarray(bits))

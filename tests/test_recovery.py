@@ -20,7 +20,7 @@ from svi_mapper_tpu.geometry import se3
 from svi_mapper_tpu.io.synthetic import SyntheticSequence, render_stereo
 from svi_mapper_tpu.models.tracker import StereoTracker
 from svi_mapper_tpu.ops.descriptors import smooth_brief_dense
-from svi_mapper_tpu.ops.track_kernel import REACH_X, REACH_Y
+from svi_mapper_tpu.frontend.tracking import REACH_X, REACH_Y
 
 
 @pytest.fixture(scope="module")

@@ -2,6 +2,8 @@
 track-lost detection (SURVEY.md §2.6/§5 parity)."""
 
 import dataclasses
+import os
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -81,8 +83,8 @@ def test_reference_calibrations_still_load():
     from svi_mapper_tpu.config import load_stereo_camera
 
     cam = load_stereo_camera(
-        "/root/reference/hardware_parameters/kitti_00_camera_left.txt",
-        "/root/reference/hardware_parameters/kitti_00_camera_right.txt",
+        "kitti_00_camera_left.txt",
+        "kitti_00_camera_right.txt",
     )
     assert abs(float(cam.baseline) - 0.537) < 0.01
 
@@ -135,3 +137,45 @@ def test_run_logger_files(tmp_path):
 
     T = load_kitti_trajectory(tmp_path / "logs" / "trajectory_kitti.txt")
     assert T.shape == (3, 4, 4)
+
+
+_CACHE_PROBE = """
+import jax, jax.numpy as jnp
+from svi_mapper_tpu.utils.compile_cache import enable_compile_cache
+print(enable_compile_cache())
+print(jax.config.jax_compilation_cache_dir)
+jax.block_until_ready(jax.jit(lambda x: x * 2 + 1)(jnp.ones(3)))
+"""
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_placement(tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR wins when set (and the cache lands there);
+    otherwise the cache goes to the fixed in-checkout directory."""
+    import subprocess
+    import sys
+
+    from svi_mapper_tpu.utils import compile_cache
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    env.update(JAX_PLATFORMS="cpu", PYTHONPATH=str(Path(__file__).parents[1]))
+    if env_set:
+        env.update(JAX_COMPILATION_CACHE_DIR=str(tmp_path),
+                   JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS="0",
+                   JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES="0")
+        probe = _CACHE_PROBE
+    else:
+        # placement only: do not write into the checkout from a test
+        probe = _CACHE_PROBE.rsplit("jax.block_until_ready", 1)[0]
+    r = subprocess.run([sys.executable, "-c", probe], env=env, cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    returned, configured = r.stdout.split()[:2]
+    if env_set:
+        assert returned == configured == str(tmp_path)
+        assert any(p.name.endswith("-cache") for p in tmp_path.iterdir())
+    else:
+        want = str(compile_cache.CHECKOUT_CACHE_DIR)
+        assert returned == configured == want
+        assert want.startswith(str(Path(__file__).parents[1]))

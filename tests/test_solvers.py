@@ -219,6 +219,86 @@ def test_optimize_landmarks_recovers_points(rng):
     assert np.all(err[opt] < 1.5)
 
 
+def _numpy_landmark_gn(p0, uv, T, mask, cam, kernel_px2=10.0,
+                       max_iterations=100, convergence=1e-5, damping=1e-6):
+    """float64 per-landmark robust GN (CLandmark.cpp:447-581 semantics):
+    the plain reference for the structure-of-arrays core."""
+    fx, fy = float(cam.left.fx), float(cam.left.fy)
+    cx, cy = float(cam.left.cx), float(cam.left.cy)
+    bq = float(np.asarray(cam.right.P)[0, 3])
+    R, t = T[:, :3, :3].astype(np.float64), T[:, :3, 3].astype(np.float64)
+
+    def project(p):
+        pc = R @ p + t
+        z = np.where(np.abs(pc[:, 2]) < 1e-6, 1e-6, pc[:, 2])
+        pred = np.stack([fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy,
+                         (fx * pc[:, 0] + bq) / z + cx,
+                         fy * pc[:, 1] / z + cy], -1)
+        return pc, z, pred - uv
+
+    p = p0.astype(np.float64)
+    for _ in range(max_iterations):
+        pc, z, r = project(p)
+        err2 = (r * r).sum(-1)
+        w = np.where(err2 > kernel_px2, kernel_px2 / np.maximum(err2, 1e-12),
+                     1.0) * mask * (pc[:, 2] > 0.05)
+        iz, iz2 = 1.0 / z, 1.0 / z ** 2
+        J_cam = np.zeros((len(z), 4, 3))
+        J_cam[:, 0] = np.stack([fx * iz, 0 * iz, -fx * pc[:, 0] * iz2], -1)
+        J_cam[:, 1] = np.stack([0 * iz, fy * iz, -fy * pc[:, 1] * iz2], -1)
+        J_cam[:, 2] = np.stack([fx * iz, 0 * iz,
+                                -(fx * pc[:, 0] + bq) * iz2], -1)
+        J_cam[:, 3] = J_cam[:, 1]
+        J = J_cam @ R
+        H = np.einsum("mri,m,mrj->ij", J, w, J) + damping * np.eye(3)
+        dp = -np.linalg.solve(H, np.einsum("mri,m,mr->i", J, w, r))
+        p = p + dp
+        if np.abs(dp).max() <= convergence:
+            break
+    pc, z, r = project(p)
+    usable = mask * (pc[:, 2] > 0.05)
+    n = max(usable.sum(), 1.0)
+    err2 = (r * r).sum(-1)
+    return p, (usable * (err2 < kernel_px2)).sum() / n, (usable * err2).sum() / n
+
+
+def test_refinement_core_matches_float64_gauss_newton(rng):
+    """The kept structure-of-arrays core against the plain float64 GN."""
+    cam = make_cam()
+    L, M = 16, 6
+    table = lm.make_table(L, M)
+    p_true = make_world(rng, L)
+    p_true[:, 2] = rng.uniform(5, 20, L)        # well-conditioned depths
+    poses = [np.asarray(se3.exp_se3(jnp.asarray(
+        [0.1 * i, 0, -0.6 * i, 0, 0.003 * i, 0], jnp.float32)))
+        for i in range(M)]
+    meas_uv = np.zeros((L, M, 4), np.float32)
+    meas_T = np.zeros((L, M, 4, 4), np.float32)
+    for i, T in enumerate(poses):
+        meas_uv[:, i], _ = observe(cam, T, p_true, noise=0.3, rng=rng)
+        meas_T[:, i] = T
+    p0 = (p_true + rng.normal(0, 0.3, (L, 3))).astype(np.float32)
+    counts = rng.integers(3, M + 1, L)             # partly filled rings
+    table = table.replace(
+        active=jnp.ones(L, bool), pos_w=jnp.asarray(p0),
+        meas_uv=jnp.asarray(meas_uv), meas_T_wc=jnp.asarray(meas_T),
+        meas_count=jnp.asarray(counts, jnp.int32))
+    fx, fy = cam.left.fx, cam.left.fy
+    cx, cy, bq = cam.left.cx, cam.left.cy, cam.right.P[0, 3]
+    p_opt, inl, avg, ok = jax.jit(
+        lambda t: landmark_opt._refine_soa(t, fx, fy, cx, cy, bq,
+                                           10.0, 100, 1e-5, 1e-6))(table)
+    mask = np.asarray(lm.measurement_mask(table), np.float64)
+    assert np.asarray(ok).all()
+    for i in range(L):
+        p_ref, inl_ref, avg_ref = _numpy_landmark_gn(
+            p0[i], meas_uv[i].astype(np.float64), meas_T[i], mask[i], cam)
+        np.testing.assert_allclose(np.asarray(p_opt[i]), p_ref, atol=2e-3)
+        np.testing.assert_allclose(float(inl[i]), inl_ref, atol=1e-6)
+        np.testing.assert_allclose(float(avg[i]), avg_ref, rtol=1e-2,
+                                   atol=1e-3)
+
+
 def test_optimize_landmarks_needs_min_measurements(rng):
     cam = make_cam()
     table = lm.make_table(8, 8)

@@ -5,11 +5,14 @@ triangulation_sampling.cpp, create_cloud; fault hook CLandmark.cpp:648-710)."""
 import pytest
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 
 from svi_mapper_tpu.eval import trajectory as ev
 from svi_mapper_tpu.utils import faults
+
+REPO_ROOT = Path(__file__).resolve().parents[1]
 
 RNG = np.random.default_rng(3)
 
@@ -177,7 +180,7 @@ def test_vocabulary_cli_pipeline(tmp_path):
     r = subprocess.run(
         [sys.executable, "-m", "svi_mapper_tpu.tools.compute_descriptors",
          str(imgs), "-o", str(desc), "--cpu", "--max-per-image", "64"],
-        capture_output=True, text=True, timeout=300, env=env, cwd="/root/repo",
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO_ROOT,
     )
     assert r.returncode == 0, r.stdout + r.stderr
     z = np.load(desc)
@@ -188,7 +191,7 @@ def test_vocabulary_cli_pipeline(tmp_path):
         [sys.executable, "-m", "svi_mapper_tpu.tools.create_vocabulary",
          str(desc), "-o", str(vocab), "--cpu", "--k", "3", "--levels", "2",
          "--iters", "3"],
-        capture_output=True, text=True, timeout=300, env=env, cwd="/root/repo",
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO_ROOT,
     )
     assert r.returncode == 0, r.stdout + r.stderr
     from svi_mapper_tpu.mapping.vocabulary import load_vocabulary, word_ids
